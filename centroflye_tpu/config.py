@@ -26,9 +26,8 @@ class RecruitmentConfig:
     # 350 for DXZ1/cenX (default), 550 for D6Z1/cen6.
     threshold: int = 350
     # Device batch: reads per kernel launch (padded to this many rows).
-    # Bigger batches amortize per-call dispatch overhead; 2048 measured
-    # fastest e2e on the single-chip dev setup (7.5k -> 10.8k reads/s vs
-    # 1024 at the bench workload).
+    # Bigger batches amortize per-call dispatch overhead (2048 is not yet
+    # re-measured on a GPU).
     batch_size: int = 2048
     # Reads longer than this are scanned in chunks with (unit+threshold)-sized
     # overlap so an instance spanning a boundary is not missed.
@@ -41,8 +40,8 @@ class RecruitmentConfig:
     min_seed_hits: int = 8
     # Sequence-parallel long-read overflow (parallel/seq_parallel): when a
     # mesh is present, reads at least this long are scored WHOLE — DP
-    # columns sharded over the mesh with ICI carry handoff — instead of
-    # host-segmented (bit-identical distances; the ring-attention
+    # columns sharded over the mesh, carry handed device to device —
+    # instead of host-segmented (bit-identical distances; the ring-attention
     # analogue of SURVEY §5). 0 disables.
     seq_parallel_min_len: int = 3 * 32768
 
@@ -165,7 +164,7 @@ class MonoConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
-    """Multi-chip execution over a jax.sharding.Mesh."""
+    """Multi-device execution over a jax.sharding.Mesh."""
 
     # Name of the data-parallel mesh axis over which read batches are sharded.
     data_axis: str = "reads"

@@ -3,7 +3,7 @@
 The reference keeps sequences as Python strings and k-mers as string dict keys
 (reference scripts/utils/bio.py:27-29 RC, :60-61 compress_homopolymer,
 :191-194 min_cyclic_shift; distance_based_kmer_recruitment.py:50-54 string
-k-mer counting). On TPU everything is arrays: bases are int8 codes
+k-mer counting). On device everything is arrays: bases are int8 codes
 (A=0, C=1, G=2, T=3, pad/N=4) and a k-mer is a 2-bit-packed integer code
 carried as an (hi, lo) uint32 pair on device (JAX x64 stays off) or a single
 numpy uint64 on host.

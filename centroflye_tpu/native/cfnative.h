@@ -6,7 +6,7 @@
  *    (the data-loader role of kseq.h), and
  *  - a 64-bit-word Myers bit-parallel edit-distance engine with optional
  *    traceback (the edlib role) used for host-side parity checks of the
- *    TPU kernel and for alignment-path extraction.
+ *    device kernels and for alignment-path extraction.
  * Both are original implementations designed around this engine's data
  * model (int8 base codes, batch buffers ready for device upload).
  */

@@ -4,9 +4,10 @@
 // algorithm over 64-bit words, covering the three edlib alignment modes the
 // reference relies on (NW / SHW / HW; reference edlib.h:21-47,
 // myersCalcEditDistanceSemiGlobal at edlib.cpp:526). Used as the host-side
-// oracle for the TPU kernel (ops/myers.py) and for fast alignment-path
-// extraction (cf_align_path stores per-column vertical delta bits and walks
-// them back — O(qlen*tlen/64) memory words, O((qlen+tlen)*qlen) traceback).
+// oracle for the device kernels (ops/myers.py, ops/myers_cuda.py) and for
+// fast alignment-path extraction (cf_align_path stores per-column vertical
+// delta bits and walks them back — O(qlen*tlen/64) memory words,
+// O((qlen+tlen)*qlen) traceback).
 
 #include "cfnative.h"
 
@@ -655,7 +656,7 @@ int32_t align_path_full(const int8_t* query, int32_t qlen,
                            &vn_cols[(size_t)j * words]);
     bottom[j] = score;
     if (mode != CF_MODE_NW && score < best) {
-      best = score;  // first best column (parity with the TPU kernel)
+      best = score;  // first best column (parity with the device kernels)
       best_j = j;
     }
   }

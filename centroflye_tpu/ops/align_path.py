@@ -12,9 +12,9 @@ them for polishing comparisons and consensus rotation. Here:
 - Deterministic operation order: ties prefer diagonal, then vertical
   (gap in target), then horizontal (gap in query).
 
-The heavy *distance* scans stay on TPU (ops/myers); paths are only needed
-for consensus building on short (~unit-length) sequences, which is host
-work by design — the same split the reference uses (C++ edlib under a
+The heavy *distance* scans stay on the device (ops/myers); paths are only
+needed for consensus building on short (~unit-length) sequences, which is
+host work by design — the same split the reference uses (C++ edlib under a
 Python driver).
 """
 

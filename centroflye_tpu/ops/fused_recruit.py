@@ -3,11 +3,12 @@ on-device compaction -> Myers on survivors.
 
 Each engine batch costs exactly one host->device round trip:
 - the host uploads base codes packed 4-per-byte (plus an N-position bitmask,
-  8-per-byte): 2.25 bits/base instead of 8 — the host link is the scarce
-  resource, on tunneled dev setups especially;
+  8-per-byte): 2.25 bits/base instead of 8, so the host->device copy moves
+  a quarter of the bytes;
 - the device unpacks, counts unit seed hits per row (ops/seed_filter),
   stably partitions passing rows to the front (argsort of the fail flag),
-  runs the Pallas Myers kernel on the first K_budget rows only, and
+  runs the two-strand Myers scorer (ops/myers_cuda.two_strand_scorer) on
+  the first K_budget rows only, and
   scatters distances back to original row order (sentinel m for filtered
   rows);
 - the host receives (dist_fwd, dist_rc, hits, n_pass) and falls back to the
@@ -24,7 +25,6 @@ import jax.numpy as jnp
 import numpy as np
 
 from centroflye_tpu.ops.kmers import pack_kmers, lookup_codes
-from centroflye_tpu.ops.myers import myers_distance_batch
 
 
 def unpack_2bit_host(packed: np.ndarray) -> np.ndarray:
@@ -90,8 +90,7 @@ def _unpack_2bit(packed: jnp.ndarray, n_mask: jnp.ndarray) -> jnp.ndarray:
 def make_fused_recruit(seed_bitmap: np.ndarray,
                        peq_fwd: np.ndarray, peq_rc: np.ndarray,
                        *, m: int, seed_k: int, min_hits: int,
-                       k_budget: int = 128, stride: int = 2,
-                       use_pallas: bool | None = None,
+                       scorer, k_budget: int = 128, stride: int = 2,
                        mesh=None, seed_bitmap_le: np.ndarray = None):
     """Returns fused(packed, n_mask, lens) -> (df, dr, hits, n_pass), all
     device-resident until the caller materializes. seed_bitmap: the
@@ -103,9 +102,8 @@ def make_fused_recruit(seed_bitmap: np.ndarray,
     only drop reads that are clearly non-centromeric. The production
     engine feeds this step only rows that already passed the HOST stage-A
     prescan (ops/seed_filter.host_prescan_hits) — non-candidate rows never
-    cross the host→device link at all."""
-    if use_pallas is None:
-        use_pallas = jax.default_backend() not in ("cpu",)
+    cross the host→device link at all. `scorer` is the two-strand Myers
+    function (ops/myers_cuda.two_strand_scorer for the step's devices)."""
     min_hits = max(1, min_hits // stride)
 
     seed_bitmap = jnp.asarray(seed_bitmap)
@@ -118,27 +116,9 @@ def make_fused_recruit(seed_bitmap: np.ndarray,
     if packed_path_ok:
         seed_bitmap_le = jnp.asarray(seed_bitmap_le)
 
-    def _myers_top(sub_codes, sub_lens, L):
-        kb = sub_codes.shape[0]
-        if use_pallas:
-            from centroflye_tpu.ops.myers_pallas_v3 import (
-                myers_hw_pallas_v3_2strand, TILE_B)
-            kb_pad = -(-kb // TILE_B) * TILE_B
-            if kb_pad != kb:
-                sub_codes = jnp.concatenate(
-                    [sub_codes,
-                     jnp.zeros((kb_pad - kb, L), sub_codes.dtype)], axis=0)
-                sub_lens = jnp.concatenate(
-                    [sub_lens, jnp.zeros((kb_pad - kb,), sub_lens.dtype)])
-            both = myers_hw_pallas_v3_2strand(
-                peq_fwd, peq_rc, sub_codes.T,
-                sub_lens.reshape(-1, 1), m=m)
-            return both["dist_f"][:kb], both["dist_r"][:kb]
-        out_f = myers_distance_batch(peq_fwd, sub_codes, sub_lens,
-                                     m=m, mode="HW")
-        out_r = myers_distance_batch(peq_rc, sub_codes, sub_lens,
-                                     m=m, mode="HW")
-        return out_f["dist"][:kb], out_r["dist"][:kb]
+    def _myers_top(sub_codes, sub_lens):
+        both = scorer(peq_fwd, peq_rc, sub_codes, sub_lens, m=m)
+        return both["dist_f"], both["dist_r"]
 
     def _packed_hits(W, Wn, lens, offsets):
         """Packed-direct hit counts over sampled in-word phases `offsets`:
@@ -174,7 +154,6 @@ def make_fused_recruit(seed_bitmap: np.ndarray,
         range(0, 4, stride) of bytes 0..L/4-4, and the LE-keyed bitmap
         holds the same membership set."""
         B, Lq = packed.shape
-        L = Lq * 4
         W = jax.lax.bitcast_convert_type(
             packed.reshape(B, Lq // 4, 4), jnp.uint32)
         Wn = jnp.pad(W[:, 1:], ((0, 0), (0, 1)))      # next word, 0-padded
@@ -185,7 +164,7 @@ def make_fused_recruit(seed_bitmap: np.ndarray,
         top = order[:kb]
         sub_codes = _unpack_nomask_rows(packed[top])    # unpack kb rows only
         sub_lens = lens[top]
-        dist_f, dist_r = _myers_top(sub_codes, sub_lens, L)
+        dist_f, dist_r = _myers_top(sub_codes, sub_lens)
         sentinel = jnp.full((B,), m, jnp.int32)
         sub_ok = ~fail[top]
         df = sentinel.at[top].set(jnp.where(sub_ok, dist_f, m))
@@ -195,7 +174,7 @@ def make_fused_recruit(seed_bitmap: np.ndarray,
 
     def _fused_body(codes, lens):
         from centroflye_tpu.ops.seed_filter import seed_hit_counts_bitmap
-        B, L = codes.shape
+        B = codes.shape[0]
         hits = seed_hit_counts_bitmap(seed_bitmap, codes, lens,
                                       k=seed_k, stride=stride)
         fail = hits < min_hits
@@ -204,7 +183,7 @@ def make_fused_recruit(seed_bitmap: np.ndarray,
         top = order[:kb]
         sub_codes = codes[top]
         sub_lens = lens[top]
-        dist_f, dist_r = _myers_top(sub_codes, sub_lens, L)
+        dist_f, dist_r = _myers_top(sub_codes, sub_lens)
         sentinel = jnp.full((B,), m, jnp.int32)
         sub_ok = ~fail[top]
         df = sentinel.at[top].set(jnp.where(sub_ok, dist_f, m))
@@ -229,7 +208,7 @@ def make_fused_recruit(seed_bitmap: np.ndarray,
     if mesh is not None and mesh.devices.size > 1:
         # multi-chip: shard batch rows over the mesh data axis — the
         # per-shard bodies (filter + compaction + Myers on each shard's
-        # survivors) are independent, the TPU analogue of the reference's
+        # survivors) are independent, the device analogue of the reference's
         # process fan-out (run_read_recruitment.sh:35-44); the bundle is
         # shard-blocked [df|dr|hits|n_pass]*n_dev and re-ordered on host
         from jax import shard_map

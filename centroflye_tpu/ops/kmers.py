@@ -2,7 +2,7 @@
 
 The reference counts k-mers in Python dicts keyed by k-mer strings — the
 9h/800GB bottleneck (reference distance_based_kmer_recruitment.py:39-63
-get_kmer_freqs_from_ncrf_report, :85-128 get_kmer_dist_map). The TPU design
+get_kmer_freqs_from_ncrf_report, :85-128 get_kmer_dist_map). The device design
 replaces every dict with sort/segment-reduce over 2-bit-packed integer codes:
 
 - a k-mer (k <= 31) is a big-endian 2-bit code carried as an (hi, lo) uint32
@@ -12,7 +12,7 @@ replaces every dict with sort/segment-reduce over 2-bit-packed integer codes:
   static shapes (invalid slots ride a sentinel key that sorts last);
 - tables of unique k-mers are fixed-capacity (hi, lo, counts..., n) tuples,
   mergeable associatively — the cross-device reduction is a concat + resort
-  (per-shard tables merged over ICI via all_gather, see parallel/).
+  (per-shard tables merged via all_gather, see parallel/).
 
 Everything here is exact — no hashing tricks — so outputs are bit-for-bit
 comparable to the reference's dict counting.

@@ -1,6 +1,6 @@
-"""Batched Myers bit-parallel edit distance in JAX (TPU-native formulation).
+"""Batched Myers bit-parallel edit distance in plain JAX.
 
-This is the single shared alignment primitive of the engine — the TPU
+This is the single shared alignment primitive of the engine — the batched
 re-design of the role edlib plays in the reference (vendored C++ at
 scripts/read_recruitment/edlib/src/edlib.cpp: myersCalcEditDistanceSemiGlobal
 at edlib.cpp:526, calculateBlock at edlib.cpp:388; consumed both by the rr
@@ -10,8 +10,8 @@ better_consensus_unit_reconstruction.py:184-186).
 Design (not a port):
 - The query bit-state lives in ``W = ceil(m/32)`` uint32 lanes per sequence;
   a batch of ``B`` sequences advances in lock-step, so every column update is
-  a (B, W) elementwise VPU op — no per-sequence divergence, no banding, no
-  data-dependent control flow.
+  a (B, W) elementwise vector op — no per-sequence divergence, no banding,
+  no data-dependent control flow.
 - The multi-word carry of the Myers addition is computed with a
   carry-lookahead (generate/propagate) ``associative_scan`` over the word
   axis: log2(W) vector steps instead of a serial word chain.
@@ -21,8 +21,9 @@ Design (not a port):
 - Columns beyond each sequence's length are masked out, so one padded (B, L)
   int8 batch serves mixed-length reads.
 
-The same column update is reused by the Pallas kernel (ops/myers_pallas.py),
-which keeps state in VMEM across a fori_loop for long targets.
+The recruitment hot path scores with the CUDA kernel of ops/myers_cuda.py
+on a GPU, which keeps the same bit state in registers across the whole
+text; this scan is its reference and its path everywhere else.
 """
 
 from __future__ import annotations

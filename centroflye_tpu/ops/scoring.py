@@ -2,7 +2,7 @@
 
 The reference scores a read against the cloud contig with Python set
 intersections per (offset, unit) pair (reference cloud_contig.py:46-76) or
-an incremental dict-of-Counters index (:87-95). The TPU formulation:
+an incremental dict-of-Counters index (:87-95). The device formulation:
 k-mer sets become BITMAPS over the unique-k-mer index space (W = ceil(n/32)
 uint32 lanes), and the score of read r at offset o is a sliding bitwise
 correlation
@@ -10,7 +10,8 @@ correlation
     score1[r, o] = sum_t popcount(read[r, t] & contig[o + t])
     score0[r, o] = sum_t [popcount(read[r, t] & contig[o + t]) > 0]
 
-— a lax.scan over unit index t of VPU AND+popcount ops on (R, P, W) tiles.
+— a lax.scan over unit index t of vector AND+popcount ops on (R, P, W)
+tiles.
 This replaces the slow validation scorer at scale (map_reads) and provides
 the initial bulk scoring for the greedy placement loop (the argmax itself
 stays exact and sequential).
@@ -93,9 +94,9 @@ def placement_scores_matmul(clouds_tensor: jnp.ndarray,
                             contig_pos: jnp.ndarray,
                             n_kmers: int, n_pos: int
                             ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """All-offset placement scores on the MXU.
+    """All-offset placement scores as one matrix product.
 
-    The popcount correlation above is VPU-bound (R*P*T*W word ops). The
+    The popcount correlation above costs R*P*T*W word ops. The
     same counts are one big matmul: with A[(r,t), v] the one-hot cloud
     membership and B[v, p] the one-hot contig pair table,
     C = A @ B gives C[(r,t), p] = |cloud(r,t) & contig(p)|, and the

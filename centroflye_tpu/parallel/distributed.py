@@ -1,41 +1,68 @@
-"""Multi-host pod-slice execution glue.
+"""Multi-process execution glue.
 
 The reference has no multi-node anything (SURVEY §2.2); this engine scales
-by data-parallelism over reads. On a multi-host TPU pod slice:
+by data-parallelism over reads. In a multi-process run:
 
-- every host calls `init_distributed()` (jax.distributed handshake), builds
-  the global mesh over all devices, and streams its own shard of the read
-  files (`shard_read_files` splits by round-robin so hosts need no
-  coordination);
-- per-shard tables merge with the collectives in parallel/mesh.py over ICI;
+- every process calls `init_distributed()` (jax.distributed handshake),
+  builds the global mesh over all devices, and streams its own shard of
+  the read files (`shard_read_files` splits by round-robin so processes
+  need no coordination);
+- per-shard tables merge with the collectives in parallel/mesh.py;
 - stage artifacts are written by process 0 only (`is_coordinator`).
 
-Single-host runs work unchanged (init is a no-op without the cluster env).
+A JAX process reserves most of the memory of every GPU it opens, so two
+processes must never open the same card: run one process per host (it
+drives all of that host's cards), or pin each process to its own cards
+with `local_device_ids`. A single process on one host, with the mesh in
+parallel/mesh.py over its local cards, is the default and needs none of
+this.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Iterable, Iterator, List, Optional, Tuple
+from typing import Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import jax
+
+_ENV = ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES", "JAX_PROCESS_ID")
 
 
 def init_distributed(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
-                     process_id: Optional[int] = None) -> bool:
-    """Initialize jax.distributed when running multi-process; returns True
-    when a multi-process setup is active. Arguments default to the standard
-    cluster environment (TPU pod metadata / JAX_COORDINATOR_ADDRESS)."""
-    explicit = coordinator_address is not None
-    env_driven = any(v in os.environ for v in (
-        "JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS"))
-    if not explicit and not env_driven:
-        return jax.process_count() > 1
+                     process_id: Optional[int] = None,
+                     local_device_ids: Optional[Sequence[int]] = None,
+                     ) -> bool:
+    """Join a multi-process run; returns True when one is active.
+
+    Nothing on a GPU host describes the cluster to JAX, so the
+    coordinator address (host:port), the process count and this
+    process's id are all required, from the arguments or else from
+    JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID (with
+    CENTROFLYE_LOCAL_DEVICE_IDS, a comma list, for `local_device_ids`).
+    With none of them given this is a single-process no-op. Leave
+    `local_device_ids` unset only with one process per host."""
+    args = (coordinator_address, num_processes, process_id)
+    if all(a is None for a in args):
+        if not any(v in os.environ for v in _ENV):
+            return jax.process_count() > 1
+        missing = [v for v in _ENV if v not in os.environ]
+        if missing:
+            raise ValueError(f"multi-process run needs {', '.join(missing)}")
+        coordinator_address = os.environ["JAX_COORDINATOR_ADDRESS"]
+        num_processes = int(os.environ["JAX_NUM_PROCESSES"])
+        process_id = int(os.environ["JAX_PROCESS_ID"])
+        ids = os.environ.get("CENTROFLYE_LOCAL_DEVICE_IDS")
+        if ids and local_device_ids is None:
+            local_device_ids = [int(i) for i in ids.split(",")]
+    elif any(a is None for a in args):
+        raise ValueError("coordinator_address, num_processes and "
+                         "process_id are required together")
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
         num_processes=num_processes,
-        process_id=process_id)
+        process_id=process_id,
+        local_device_ids=local_device_ids)
     return jax.process_count() > 1
 
 

@@ -1,15 +1,17 @@
-"""Multi-chip execution: mesh construction + sharded pipeline steps.
+"""Multi-device execution: mesh construction + sharded pipeline steps.
 
 The reference's entire parallel inventory is process fan-out over read
 chunks with `cat` as the reduction (reference run_read_recruitment.sh:35-44,
-run_ncrf_parallel.py:39-73). The TPU design: read batches are data-parallel
+run_ncrf_parallel.py:39-73). The design: read batches are data-parallel
 over a 1-D `jax.sharding.Mesh` axis ("reads"); the unit index (Peq tables,
 contig bitmaps) is replicated; per-shard k-mer count tables are merged with
-an all_gather over ICI followed by a redundant-per-device associative fold
+an all_gather followed by a redundant-per-device associative fold
 (the sort-based merge is not an elementwise psum, but it is associative, so
 the collective pattern is gather + fold); recruitment needs no communication
-at all. Scaling to a multi-host pod slice is the same program — the mesh
-spans all processes' devices and batches arrive host-sharded.
+at all. The mesh is 1-D and follows the algorithm alone: every card of a
+GPU host reaches every other over NVLink at the same rate. Scaling to
+several hosts is the same program — the mesh spans all processes'
+devices and batches arrive host-sharded (parallel/distributed.py).
 """
 
 from __future__ import annotations
@@ -37,7 +39,8 @@ def make_mesh(n_devices: int = 0, axis: str = DATA_AXIS) -> Mesh:
 
 def auto_mesh(min_devices: int = 2) -> Optional[Mesh]:
     """Mesh over all local devices when more than one is present — the
-    production pipeline's switch between single-chip and sharded steps."""
+    production pipeline's switch between single-device and sharded
+    steps."""
     if jax.device_count() < min_devices:
         return None
     return make_mesh()
@@ -88,7 +91,7 @@ def make_perrow_myers_step(mesh: Mesh, m: int, mode: str,
     combinations, each with its own Peq table and query length, split over
     the data axis; embarrassingly parallel like recruitment. The role of
     StringDecomposer's thread fan-out (reference README.md:184-196, ~9h on
-    50 threads for cen6) over a pod slice instead."""
+    50 threads for cen6) over the mesh's devices instead."""
 
     @functools.partial(
         jax.jit,
@@ -123,7 +126,7 @@ def make_kmer_count_step(mesh: Mesh, k: int, capacity: int):
         out_specs=(P(), P(), P(), P()), check_vma=False)
     def step(codes, lens):
         uhi, ulo, cnt, n = local(codes, lens)
-        # gather all shards' tables over ICI, fold locally (identical on
+        # gather all shards' tables, fold locally (identical on
         # every device -> replicated output)
         g_uhi = jax.lax.all_gather(uhi, DATA_AXIS)     # (n_dev, cap)
         g_ulo = jax.lax.all_gather(ulo, DATA_AXIS)
@@ -142,7 +145,7 @@ def make_stats_count_step(mesh: Mesh, k: int, capacity: int):
     """Sharded per-read k-mer statistics (the rare-k-mer stage's device
     step, stages/rare_kmers.py): rows (reads) split over the data axis,
     per-shard (code -> n_reads, n_multi) tables built locally, merged with
-    all_gather + associative fold over ICI. Reads are disjoint across
+    all_gather + associative fold. Reads are disjoint across
     shards, so the two counters add exactly."""
     from jax import shard_map
     from centroflye_tpu.ops.kmers import (
@@ -177,7 +180,7 @@ def make_pair_bucket_step(mesh: Mesh, *, chunk: int, capacity: int):
     over the data axis (each shard enumerates its consecutive sub-range
     of pair indices from the replicated bucket list), the flat cloud
     array is replicated, and per-shard (i, j, d) -> count tables merge
-    with all_gather + fold over ICI — the TPU redesign of the
+    with all_gather + fold — the device redesign of the
     reference's 9h serial dict loop (reference
     distance_based_kmer_recruitment.py:85-128)."""
     from jax import shard_map
@@ -217,7 +220,8 @@ def make_placement_score_step(mesh: Mesh):
     """Sharded placement scoring + global greedy argmax: read bitmaps are
     sharded over the data axis, the contig bitmap is replicated; the
     per-iteration winner is a global argmax over (score0, score1, pos)
-    computed shard-locally and reduced over ICI (the pmax pattern)."""
+    computed shard-locally and reduced across devices (the pmax
+    pattern)."""
     from jax import shard_map
     from centroflye_tpu.ops.scoring import placement_scores
 

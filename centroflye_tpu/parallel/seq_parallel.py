@@ -1,17 +1,17 @@
 """Sequence-parallel Myers edit distance: one read's DP columns sharded
-across chips, band state handed over ICI.
+across devices, the DP state handed from one device to the next.
 
 The reference handles ultra-long reads (100kb+) only by banding inside one
 process (edlib.cpp:538 initial band, :612-622 reduction); a read never
-spans workers. The TPU design here is the ring-attention analogue SURVEY §5
+spans workers. The design here is the ring-attention analogue SURVEY §5
 calls for: the target's columns are split into N contiguous chunks, chunk d
 living on device d of a 1-D mesh axis. The Myers column recurrence is
 sequential in the target, so chunks are *pipelined over microbatches*: at
 pipeline step t, device d runs microbatch (t - d) through its chunk, then
 passes the full DP carry — (VP, VN, last-row score, running best/end/final)
-— to device d+1 with a single `ppermute` hop over ICI. After
+— to device d+1 with a single `ppermute` hop. After
 `n_micro + N - 1` steps every microbatch has flowed through all N chunks;
-with n_micro >= N the pipeline bubble is < half the steps and every chip
+with n_micro >= N the pipeline bubble is < half the steps and every device
 does useful column work on most steps.
 
 Exactness: the carry is the complete per-read DP state between columns
@@ -19,8 +19,8 @@ Exactness: the carry is the complete per-read DP state between columns
 is bit-identical to the single-device scan — asserted by
 tests/test_seq_parallel.py on the 8-device CPU mesh.
 
-Role in the engine: recruitment of reads too long for one chip's VMEM/HBM
-column budget, and a building block for mapping the ~3Mbp final contig
+Role in the engine: recruitment of reads too long to score whole on one
+device, and a building block for mapping the ~3Mbp final contig
 against the unit without host chunking.
 """
 

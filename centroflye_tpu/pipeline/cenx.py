@@ -45,7 +45,7 @@ class CenXPipeline:
         mesh: "auto" shards device stages over all local devices when more
         than one is present; pass an explicit Mesh (e.g. make_mesh(1)) to
         pin the device count.
-        distributed: on a multi-process pod-slice run (after
+        distributed: on a multi-process run (after
         parallel.distributed.init_distributed), stage 1 shards the read
         stream over processes with a coordinator merge; later stages run
         on the coordinator (run() returns "" on other processes)."""

@@ -16,9 +16,9 @@ placed read's newly-position-frequent pairs (cloud_contig.py:26-41); a pair
 can legitimately appear in both, and then counts twice — a reference quirk
 preserved for parity.
 
-TPU-first design instead of the reference's dict-of-Counters scan:
+Device design instead of the reference's dict-of-Counters scan:
 - scores live in dense (R, P) int32 arrays; the initial bulk scoring runs
-  on the MXU as a one-hot bf16 matmul with exact f32 counts
+  as a one-hot bf16 matmul with exact f32 counts
   (ops/scoring.placement_scores_matmul), falling back to the bitmap
   popcount correlation kernel (ops/scoring.placement_scores) for very
   large k-mer vocabularies;
@@ -379,7 +379,7 @@ class FastPlacer:
     _MATMUL_MAX_VOCAB = 1 << 17
 
     def _score_init_device(self, max_pos: int):
-        """Bulk (R, P) scoring on device. Default: the MXU matmul scorer
+        """Bulk (R, P) scoring on device. Default: the matmul scorer
         (ops/scoring.placement_scores_matmul — one-hot clouds @ one-hot
         contig in bf16, exact f32 counts); very large k-mer vocabularies
         fall back to the bitmap popcount correlation

@@ -4,29 +4,27 @@ build native tool -> recruit -> assemble). Usage:
     python run_all_cenX.py <reads.fasta[.gz]> <outdir> [coverage]
                            [--distributed]
 
---distributed: multi-process pod-slice mode — every host runs this same
-command (jax.distributed handshake via the standard cluster env); reads
-are sharded round-robin over processes for recruitment and process 0
-runs the remaining stages on the merged artifact.
+One process drives every local device (GPUs are sharded over with the
+mesh in parallel/mesh.py). --distributed joins a multi-process run
+described by JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES and
+JAX_PROCESS_ID (parallel/distributed.init_distributed): reads are
+sharded round-robin over processes for recruitment and process 0 runs
+the remaining stages on the merged artifact.
 """
 import os
 import subprocess
 import sys
 
+HERE = os.path.dirname(os.path.abspath(__file__))
 
-def main():
-    args = [a for a in sys.argv[1:] if a != "--distributed"]
-    distributed = "--distributed" in sys.argv[1:]
-    if len(args) < 2:
-        print(__doc__)
-        sys.exit(1)
-    reads, outdir = args[0], args[1]
-    coverage = int(args[2]) if len(args) > 2 else 32
-    here = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, here)
-    # build the native runtime if the toolchain is present (optional)
+
+def assemble(reads: str, outdir: str, coverage: int = 32, *, mesh="auto",
+             distributed: bool = False):
+    """Build the native runtime, then run CenXPipeline on `reads` into
+    `outdir`. Returns (pipeline, final assembly sequence)."""
+    # the native runtime is optional: stages fall back to Python without it
     subprocess.run(["make", "-C",
-                    os.path.join(here, "centroflye_tpu", "native")],
+                    os.path.join(HERE, "centroflye_tpu", "native")],
                    check=False, capture_output=True)
     from centroflye_tpu.config import CentroFlyeConfig
     from centroflye_tpu.io import read_seq
@@ -35,15 +33,25 @@ def main():
     if distributed:
         from centroflye_tpu.parallel.distributed import init_distributed
         distributed = init_distributed()
-
-    unit = read_seq(os.path.join(here, "centroflye_tpu", "data",
+    unit = read_seq(os.path.join(HERE, "centroflye_tpu", "data",
                                  "DXZ1_rc.fasta"))
     pipe = CenXPipeline(unit, CentroFlyeConfig(coverage=coverage), outdir,
-                        distributed=distributed)
-    final = pipe.run(reads)
+                        mesh=mesh, distributed=distributed)
+    return pipe, pipe.run(reads)
+
+
+def main():
+    args = [a for a in sys.argv[1:] if a != "--distributed"]
+    if len(args) < 2:
+        print(__doc__)
+        sys.exit(1)
+    sys.path.insert(0, HERE)
+    _, final = assemble(args[0], args[1],
+                        int(args[2]) if len(args) > 2 else 32,
+                        distributed="--distributed" in sys.argv[1:])
     if final:
         print(f"final assembly: {len(final)} bp -> "
-              f"{os.path.join(outdir, 'final_assembly.fasta')}")
+              f"{os.path.join(args[1], 'final_assembly.fasta')}")
 
 
 if __name__ == "__main__":

@@ -89,3 +89,27 @@ def test_merge_timeout(monkeypatch, tmp_path):
     D.finish_partial(out)
     with pytest.raises(TimeoutError):
         D.merge_partial_fastas(out, timeout_s=0.2, poll_s=0.05)
+
+
+def test_init_distributed_needs_whole_cluster_spec(monkeypatch):
+    for v in D._ENV:
+        monkeypatch.delenv(v, raising=False)
+    monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "localhost:12345")
+    with pytest.raises(ValueError, match="JAX_NUM_PROCESSES"):
+        D.init_distributed()
+    with pytest.raises(ValueError):
+        D.init_distributed("localhost:12345", num_processes=2)
+
+
+def test_init_distributed_pins_local_cards(monkeypatch):
+    seen = {}
+    monkeypatch.setattr(jax.distributed, "initialize",
+                        lambda **kw: seen.update(kw))
+    monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "localhost:12345")
+    monkeypatch.setenv("JAX_NUM_PROCESSES", "4")
+    monkeypatch.setenv("JAX_PROCESS_ID", "2")
+    monkeypatch.setenv("CENTROFLYE_LOCAL_DEVICE_IDS", "2")
+    assert D.init_distributed() is False      # process_count stays 1 here
+    assert seen == {"coordinator_address": "localhost:12345",
+                    "num_processes": 4, "process_id": 2,
+                    "local_device_ids": [2]}

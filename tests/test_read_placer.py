@@ -206,7 +206,7 @@ def test_fast_placer_random_parity():
 
 
 def test_matmul_scorer_matches_popcount_scorer():
-    """The MXU matmul formulation must reproduce the bitmap popcount
+    """The matmul formulation must reproduce the bitmap popcount
     correlation count-for-count (bf16 one-hots are exact 0/1, f32
     accumulation exact below 2^24)."""
     from centroflye_tpu.ops.scoring import (

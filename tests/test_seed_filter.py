@@ -13,6 +13,7 @@ from centroflye_tpu.ops.fused_recruit import (
     pack_2bit, _unpack_2bit, make_fused_recruit,
 )
 from centroflye_tpu.ops.myers import build_peq, edit_distance_oracle
+from centroflye_tpu.ops.myers_cuda import myers_hw_2strand_xla
 from centroflye_tpu.pipeline.simulate import gen_random_seq, add_read_noise
 
 K = 11
@@ -83,7 +84,7 @@ def test_fused_recruit_matches_plain(rng):
     packed, n_mask = pack_2bit(codes)
     fused = make_fused_recruit(bm, peq_f, peq_r, m=m, seed_k=K,
                                min_hits=6, k_budget=8, stride=1,
-                               use_pallas=False)
+                               scorer=myers_hw_2strand_xla)
     df, dr, hits, n_pass = fused(packed, n_mask, lens)
     df, dr = np.asarray(df), np.asarray(dr)
     assert int(n_pass) <= 8
@@ -138,7 +139,7 @@ def test_pack_nomask_when_pad_only_beyond_lens(rng):
     assert n_mask is not None         # PAD beyond lens without lens info
     fused = make_fused_recruit(bm, peq_f, peq_r, m=m, seed_k=K,
                                min_hits=6, k_budget=8, stride=1,
-                               use_pallas=False)
+                               scorer=myers_hw_2strand_xla)
     got_masked = fused(packed, n_mask, lens)
     got_nomask = fused(packed_nm, None, lens)
     for a, b in zip(got_masked, got_nomask):
@@ -259,10 +260,11 @@ def test_fused_packed_filter_matches_unpack_path(rng, stride):
     lens[1] = 13
     old = make_fused_recruit(bm, peq_f, peq_r, m=m, seed_k=13,
                              min_hits=8, k_budget=8, stride=stride,
-                             use_pallas=False)
+                             scorer=myers_hw_2strand_xla)
     new = make_fused_recruit(bm, peq_f, peq_r, m=m, seed_k=13,
                              min_hits=8, k_budget=8, stride=stride,
-                             use_pallas=False, seed_bitmap_le=bm_le)
+                             scorer=myers_hw_2strand_xla,
+                             seed_bitmap_le=bm_le)
     packed, n_mask = pack_2bit(codes, lens)
     assert n_mask is None
     a = np.asarray(old.raw(packed, None, jnp.asarray(lens)))
